@@ -2,7 +2,7 @@
 //
 // The CUDA reference's host layer sizes its scratch buffers dynamically from
 // device-side counts (resize_functional + cudaMemcpy sync, sample_points.cu:
-// 29-35, sampler_impl.cu:256-257).  The TPU engine needs *static* capacities
+// 29-35, sampler_impl.cu:256-257).  The JAX engine needs *static* capacities
 // before tracing (entry capacity, per-axis duplicate cap R, sweep work-block
 // caps, neighbor capacity).  This module computes them on the host in one
 // O(P + N + T) pass over the raw arrays - a counting-sort binning identical

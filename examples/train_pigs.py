@@ -2,13 +2,14 @@
 
 Fits a Gaussian field to a manufactured periodic Poisson problem with a PDE
 residual + data loss, backpropagating through values, means and (via the
-scale/rotation chain) covariances.  Uses the tiled Pallas pipeline with
-planner-free conservative capacities; single chip or CPU.
+scale/rotation chain) covariances.  Uses the tiled pair kernels with
+capacities from the host planner; one GPU, or the CPU (kernels in the Pallas
+interpreter - small sizes only).
 
     python examples/train_pigs.py --gaussians 2000 --steps 200
 
-For multi-chip, see dgs_tpu.parallel.mesh (make_sharded_pigs_step /
-make_model_sharded_pigs_step) and tools/scaling_bench.py.
+For multi-chip, see dgs.parallel.mesh (make_sharded_pigs_step /
+make_model_sharded_pigs_step) and ``chip_smoke.py --four-cards``.
 """
 
 import argparse
@@ -25,7 +26,7 @@ def main():
     ap.add_argument("--collocation", type=int, default=4096)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--method", default="tiled",
-                    choices=("tiled", "pallas", "dense"))
+                    choices=("tiled", "dense"))
     ap.add_argument("--log-every", type=int, default=25)
     ap.add_argument("--metrics", default=None,
                     help="JSONL metrics path (optional)")
@@ -33,11 +34,11 @@ def main():
                     help="save the final TrainState here (Orbax)")
     args = ap.parse_args()
 
-    from dgs_tpu.config import SamplerConfig
-    from dgs_tpu.models import pigs
-    from dgs_tpu.utils.metrics import JsonlLogger
+    from dgs.config import SamplerConfig
+    from dgs.models import pigs
+    from dgs.utils.metrics import JsonlLogger
 
-    cfg = SamplerConfig(work_blocks_fwd=16, work_blocks_bwd=32)
+    cfg = SamplerConfig()
     logger = JsonlLogger(args.metrics) if args.metrics else JsonlLogger(
         stream=sys.stdout
     )
@@ -47,7 +48,7 @@ def main():
         method=args.method, log_every=args.log_every, logger=logger,
     )
     if args.checkpoint:
-        from dgs_tpu.utils import checkpoint
+        from dgs.utils import checkpoint
 
         checkpoint.save(args.checkpoint, state)
         print(f"saved TrainState to {args.checkpoint}")

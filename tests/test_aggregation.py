@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dgs_tpu.config import SamplerConfig, tri_size
-from dgs_tpu.oracle import dense as oracle
-from dgs_tpu.ops import aggregation
+from dgs.config import SamplerConfig, tri_size
+from dgs.oracle import dense as oracle
+from dgs.ops import aggregation
 
 from conftest import make_gaussians
 

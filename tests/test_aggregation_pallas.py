@@ -14,9 +14,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dgs_tpu.config import SamplerConfig
-from dgs_tpu.ops import aggregation
-from dgs_tpu.oracle.dense import radii as compute_radii
+from dgs.config import SamplerConfig
+from dgs.ops import aggregation
+from dgs.oracle.dense import radii as compute_radii
 
 from conftest import make_gaussians
 

@@ -23,9 +23,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dgs_tpu.config import SamplerConfig
-from dgs_tpu.binning import grid as binning
-from dgs_tpu.ops import sampling
+from dgs.config import SamplerConfig
+from dgs.binning import grid as binning
+from dgs.ops import sampling
 
 from conftest import make_gaussians, make_samples
 
@@ -319,8 +319,6 @@ def test_tiled_grads_match_backward_cu_replica(rng, D, order):
     assert int(state.overflow) == 0 and int(state.entry_overflow) == 0
     fg = binning.forward_geometry(state, 128, 128)
     bg = binning.backward_geometry(state, 128, 64)
-    fw = int(jax.device_get(jnp.maximum(fg[1], 1).sum()))
-    bw = int(jax.device_get(jnp.maximum(bg[1], 1).sum()))
     mask = np.asarray(binning.pair_mask_dense(cfg, state, s, P))
 
     k = D ** {"value": 0, "derivative": 1, "laplacian": 2, "third": 3}[order]
@@ -328,7 +326,7 @@ def test_tiled_grads_match_backward_cu_replica(rng, D, order):
 
     def f(m_, v_, c_):
         (out,) = sampling.sample_tiled_multi(
-            (order,), cfg, m_, v_, c_, s, state, fg, bg, fw, bw,
+            (order,), cfg, m_, v_, c_, s, state, fg, bg,
             block_n=128, block_e=128, bwd_block_n=64, bwd_block_e=128,
         )
         return out.reshape(N, k, C)

@@ -1,4 +1,4 @@
-"""Tile binning + tiled Pallas kernels vs the masked oracle.
+"""Tile binning + the tiled pair kernels vs the masked oracle.
 
 The binning decides exactly which (sample, gaussian) pairs interact (a pair
 counts iff the Gaussian's 3-sigma rect covers the sample's tile - the
@@ -12,10 +12,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dgs_tpu.config import SamplerConfig
-from dgs_tpu.binning import grid as binning
-from dgs_tpu.oracle import dense as oracle
-from dgs_tpu.ops import sampling
+from dgs.config import SamplerConfig
+from dgs.binning import grid as binning
+from dgs.oracle import dense as oracle
+from dgs.ops import sampling
 
 from conftest import make_gaussians, make_samples
 
@@ -28,14 +28,16 @@ def _setup(rng, P, N, D, C=3, **kw):
     return tuple(map(jnp.asarray, (means, values, covs, conics, samples)))
 
 
-def _build(cfg, m, cov, s, block_n=128, block_e=128, bwd_n=64, bwd_e=128):
+BLOCKS = dict(block_n=128, block_e=128, bwd_block_n=64, bwd_block_e=128)
+
+
+def _build(cfg, m, cov, s):
     state = binning.build(cfg, m, cov, s)
-    fwd_geom = binning.forward_geometry(state, block_n, block_e)
-    bwd_geom = binning.backward_geometry(state, bwd_e, bwd_n)
-    # Work-list capacities: exact totals (every row block emits >= 1 item).
-    fwd_work = int(jax.device_get(jnp.maximum(fwd_geom[1], 1).sum()))
-    bwd_work = int(jax.device_get(jnp.maximum(bwd_geom[1], 1).sum()))
-    return state, fwd_geom, bwd_geom, fwd_work, bwd_work
+    fwd_geom = binning.forward_geometry(
+        state, BLOCKS["block_n"], BLOCKS["block_e"])
+    bwd_geom = binning.backward_geometry(
+        state, BLOCKS["bwd_block_e"], BLOCKS["bwd_block_n"])
+    return state, fwd_geom, bwd_geom
 
 
 @pytest.mark.parametrize("D", [1, 2, 3])
@@ -78,12 +80,10 @@ def test_pair_mask_matches_rect_math(rng, D):
 def test_tiled_forward_matches_masked_oracle(rng, D):
     cfg = SamplerConfig(max_tiles_per_gaussian=8).with_dims(D)
     m, v, cov, c, s = _setup(rng, 43, 67, D)
-    state, fg, bg, fw, bw = _build(cfg, m, cov, s)
+    state, fg, bg = _build(cfg, m, cov, s)
     mask = binning.pair_mask_dense(cfg, state, s, 43)
     outs = sampling.sample_tiled_multi(
-        ORDERS, cfg, m, v, c, s, state, fg, bg, fw, bw,
-        block_n=128, block_e=128, bwd_block_n=64, bwd_block_e=128,
-    )
+        ORDERS, cfg, m, v, c, s, state, fg, bg, **BLOCKS)
     for order, got in zip(ORDERS, outs):
         ref = oracle.evaluate(order, m, v, c, s, pair_mask=mask)
         np.testing.assert_allclose(
@@ -92,55 +92,16 @@ def test_tiled_forward_matches_masked_oracle(rng, D):
         )
 
 
-def test_work_list_flattening():
-    """work_list covers exactly the (row, col) sweep pairs, zero-inits every
-    row block once, and counts capacity overflow."""
-    from dgs_tpu.kernels import tiled as ktiled
-
-    base = jnp.asarray([2, 0, 5, 1], jnp.int32)
-    nblk = jnp.asarray([3, 0, 2, 1], jnp.int32)
-    aux, col, base_c, starts, lcnt, initialized, overflow = ktiled.work_list(
-        base, nblk, colmax=8, cap=10
-    )
-    row, first, compute = aux >> 2, (aux >> 1) & 1, aux & 1
-    # the compressed form must derive the same columns
-    w = jnp.arange(aux.shape[0], dtype=jnp.int32)
-    col_c = jnp.minimum(base_c[row] + (w - starts[row]), 8 - 1)
-    np.testing.assert_array_equal(
-        np.where(compute, col, 0), np.where(compute, col_c, 0)
-    )
-    # expected items: rows with nblk=0 still emit one (non-compute) item
-    want = [(0, 2, 1, 1), (0, 3, 0, 1), (0, 4, 0, 1),
-            (1, 0, 1, 0),                      # empty row block: init only
-            (2, 5, 1, 1), (2, 6, 0, 1),
-            (3, 1, 1, 1)]
-    for k, (r, c, f, v) in enumerate(want):
-        assert (int(row[k]), int(first[k]), int(compute[k])) == (r, f, v), k
-        if v:
-            assert int(col[k]) == c, k
-    # sentinels: no init, no compute, row stays at the last block
-    for k in range(len(want), 10):
-        assert int(first[k]) == 0 and int(compute[k]) == 0
-        assert int(row[k]) == 3
-    assert int(overflow) == 0 and bool(initialized.all())
-    # truncated capacity: overflow counted, uninitialized blocks flagged
-    *_, initialized2, overflow2 = ktiled.work_list(base, nblk, 8, 4)
-    assert int(overflow2) == 3
-    assert list(map(bool, initialized2)) == [True, True, False, False]
-
-
 @pytest.mark.parametrize("D", [1, 2, 3])
 def test_tiled_backward_matches_masked_oracle_autodiff(rng, D):
     cfg = SamplerConfig(max_tiles_per_gaussian=8).with_dims(D)
     m, v, cov, c, s = _setup(rng, 31, 37, D)
-    state, fg, bg, fw, bw = _build(cfg, m, cov, s)
+    state, fg, bg = _build(cfg, m, cov, s)
     mask = binning.pair_mask_dense(cfg, state, s, 31)
 
     def loss_tiled(m_, v_, c_):
         outs = sampling.sample_tiled_multi(
-            ORDERS, cfg, m_, v_, c_, s, state, fg, bg, fw, bw,
-            block_n=128, block_e=128, bwd_block_n=64, bwd_block_e=128,
-        )
+            ORDERS, cfg, m_, v_, c_, s, state, fg, bg, **BLOCKS)
         return sum(jnp.sum(o**2) for o in outs)
 
     def loss_oracle(m_, v_, c_):
@@ -163,11 +124,9 @@ def test_tiled_equals_dense_for_wide_gaussians(rng):
     """Gaussians whose rects cover the whole grid: tiled == unmasked dense."""
     cfg = SamplerConfig(max_tiles_per_gaussian=8)
     m, v, cov, c, s = _setup(rng, 9, 21, 2, sigma_range=(0.9, 1.2))
-    state, fg, bg, fw, bw = _build(cfg, m, cov, s)
+    state, fg, bg = _build(cfg, m, cov, s)
     outs = sampling.sample_tiled_multi(
-        ("value",), cfg, m, v, c, s, state, fg, bg, fw, bw,
-        block_n=128, block_e=128, bwd_block_n=64, bwd_block_e=128,
-    )
+        ("value",), cfg, m, v, c, s, state, fg, bg, **BLOCKS)
     ref = oracle.evaluate("value", m, v, c, s)
     np.testing.assert_allclose(outs[0], ref, rtol=2e-4, atol=1e-5)
 
@@ -186,11 +145,9 @@ def test_culled_zero_radius_gaussian(rng):
     cfg = SamplerConfig()
     m, v, cov, c, s = _setup(rng, 5, 11, 2)
     cov = cov.at[2].set(jnp.array([0.01, 0.01, 0.01]))  # det == 0
-    state, fg, bg, fw, bw = _build(cfg, m, cov, s)
+    state, fg, bg = _build(cfg, m, cov, s)
     outs = sampling.sample_tiled_multi(
-        ("value",), cfg, m, v, c, s, state, fg, bg, fw, bw,
-        block_n=128, block_e=128, bwd_block_n=64, bwd_block_e=128,
-    )
+        ("value",), cfg, m, v, c, s, state, fg, bg, **BLOCKS)
     mask = binning.pair_mask_dense(cfg, state, s, 5)
     assert not bool(mask[:, 2].any())
     ref = oracle.evaluate("value", m, v, c, s, pair_mask=mask)
@@ -200,14 +157,13 @@ def test_culled_zero_radius_gaussian(rng):
 def test_padded_sorted_unique_outputs_and_sample_binning(rng):
     """padded+sorted+unique outputs with a prebuilt sample binning must give
     the same loss and gradients as the plain path."""
-    from dgs_tpu.models.field import init_field
+    from dgs.models.field import init_field
 
     P, N, D, C = 400, 1500, 2, 3
     f = init_field(jax.random.PRNGKey(3), P, D, C, sigma=0.06)
     s = jnp.asarray(make_samples(rng, N, D))
     cfg = SamplerConfig(tile_size=0.25, max_tiles_per_gaussian=4,
-                        eig_floor=1e-12, entry_capacity_factor=30.0,
-                        work_blocks_fwd=32, work_blocks_bwd=64)
+                        eig_floor=1e-12, entry_capacity_factor=30.0)
     con, cov = f.conics(), f.covariances()
     sb = binning.bin_samples(cfg, s)
 
@@ -223,8 +179,7 @@ def test_padded_sorted_unique_outputs_and_sample_binning(rng):
 
     (l0, d0), g0 = loss(False, None)
     (l1, d1), g1 = loss(True, sb)
-    for k in ("bin_overflow", "entry_overflow", "work_overflow_fwd",
-              "work_overflow_bwd"):
+    for k in ("bin_overflow", "entry_overflow"):
         assert int(d1[k]) == 0, (k, int(d1[k]))
     np.testing.assert_allclose(l0, l1, rtol=1e-6)
     for a, b in zip(g0, g1):
@@ -235,14 +190,13 @@ def test_backward_is_deterministic(rng):
     """Two identical runs give BITWISE-equal gradients - the deterministic
     segment-sum replaces CUDA's nondeterministic atomicAdd order
     (backward.cu:121-152)."""
-    from dgs_tpu.models.field import init_field
+    from dgs.models.field import init_field
 
     P, N, D, C = 300, 1200, 2, 3
     f = init_field(jax.random.PRNGKey(9), P, D, C, sigma=0.06)
     s = jnp.asarray(make_samples(rng, N, D))
     cfg = SamplerConfig(tile_size=0.25, max_tiles_per_gaussian=4,
-                        eig_floor=1e-12, entry_capacity_factor=30.0,
-                        work_blocks_fwd=32, work_blocks_bwd=64)
+                        eig_floor=1e-12, entry_capacity_factor=30.0)
     con, cov = f.conics(), f.covariances()
 
     @jax.jit
@@ -263,7 +217,7 @@ def test_open_domain_binned_matches_oracle(rng):
     """Non-periodic (open) domain: clamped rects, no wrap - outputs and
     gradients match the masked oracle (a capability extension; the
     reference is torus-only, config.h:19)."""
-    from dgs_tpu.models.field import init_field
+    from dgs.models.field import init_field
 
     P, N, D, C = 300, 1500, 2, 3
     f = init_field(jax.random.PRNGKey(0), P, D, C, sigma=0.06)
@@ -271,8 +225,7 @@ def test_open_domain_binned_matches_oracle(rng):
     cfg = SamplerConfig(period=None, lower=(-1.0, -1.0),
                         upper_bounds=(1.0, 1.0), tile_size=0.25,
                         max_tiles_per_gaussian=4, eig_floor=1e-12,
-                        entry_capacity_factor=30.0,
-                        work_blocks_fwd=32, work_blocks_bwd=64)
+                        entry_capacity_factor=30.0)
     con, cov = f.conics(), f.covariances()
     orders = ("value", "derivative", "laplacian")
 
@@ -282,8 +235,7 @@ def test_open_domain_binned_matches_oracle(rng):
 
     (l, diag), g = jax.value_and_grad(
         loss, argnums=(0, 1, 2), has_aux=True)(f.means, f.values, con)
-    for k in ("bin_overflow", "entry_overflow", "work_overflow_fwd",
-              "work_overflow_bwd"):
+    for k in ("bin_overflow", "entry_overflow"):
         assert int(diag[k]) == 0, k
     state = binning.build(cfg, f.means, cov, s)
     mask = binning.pair_mask_dense(cfg, state, s, P)
@@ -303,44 +255,11 @@ def test_open_domain_binned_matches_oracle(rng):
         )
 
 
-@pytest.mark.parametrize("D", [1, 2, 3])
-def test_unwrapped_separable_matches_wrapped(rng, D):
-    """Periodic domain with compact footprints: the unwrapped SEPARABLE
-    kernels (tile-local MXU pair math, kernels/tiled._separable_G_a) must
-    reproduce the wrapped per-pair path - values AND all three gradients."""
-    cfg = SamplerConfig(max_tiles_per_gaussian=4, tile_size=0.51,
-                        eig_floor=1e-12).with_dims(D)
-    m, v, cov, c, s = _setup(rng, 37, 53, D, sigma_range=(0.02, 0.05))
-    state, fg, bg, fw, bw = _build(cfg, m, cov, s)
-
-    def loss(unwrapped, m_, v_, c_):
-        outs = sampling.sample_tiled_multi(
-            ORDERS, cfg, m_, v_, c_, s, state, fg, bg, fw, bw,
-            block_n=128, block_e=128, bwd_block_n=64, bwd_block_e=128,
-            unwrapped=unwrapped, separable=unwrapped,
-        )
-        # Per-order normalization keeps the higher orders' much larger
-        # magnitudes from dominating every gradient.
-        return sum(jnp.sum(o * o) / (1.0 + jnp.sum(o * o)) * 100.0
-                   for o in outs)
-
-    (l_w, g_w) = jax.value_and_grad(
-        lambda *a: loss(False, *a), argnums=(0, 1, 2))(m, v, c)
-    (l_u, g_u) = jax.value_and_grad(
-        lambda *a: loss(True, *a), argnums=(0, 1, 2))(m, v, c)
-    np.testing.assert_allclose(l_u, l_w, rtol=1e-4)
-    for a, b, name in zip(g_u, g_w, ("means", "values", "conics")):
-        np.testing.assert_allclose(
-            a, b, rtol=2e-3, atol=1e-4 * max(1.0, float(np.abs(b).max())),
-            err_msg=name,
-        )
-
-
 def test_anisotropic_open_box_binned_matches_oracle(rng):
     """End-to-end sampling on a (2 x 1 x 0.5) anisotropic open box: binned
-    outputs and gradients match the masked oracle (VERDICT round-1 item 8:
-    per-axis extents through grid_shape + the binned path)."""
-    from dgs_tpu.models.field import init_field
+    outputs and gradients match the masked oracle (per-axis extents
+    through grid_shape + the binned path)."""
+    from dgs.models.field import init_field
 
     P, N, D, C = 200, 900, 3, 2
     f = init_field(jax.random.PRNGKey(2), P, D, C, sigma=0.05)
@@ -350,8 +269,7 @@ def test_anisotropic_open_box_binned_matches_oracle(rng):
     cfg = SamplerConfig(period=None, lower=(-1.0, -0.5, -0.25),
                         upper_bounds=(1.0, 0.5, 0.25), tile_size=0.11,
                         max_tiles_per_gaussian=6, eig_floor=1e-12,
-                        entry_capacity_factor=216.0,
-                        work_blocks_fwd=64, work_blocks_bwd=64)
+                        entry_capacity_factor=216.0)
     con, cov = f.conics(), f.covariances()
     orders = ("value", "derivative", "laplacian")
 
@@ -361,8 +279,7 @@ def test_anisotropic_open_box_binned_matches_oracle(rng):
 
     (l, diag), g = jax.value_and_grad(
         loss, argnums=(0, 1, 2), has_aux=True)(means, f.values, con)
-    for k in ("bin_overflow", "entry_overflow", "work_overflow_fwd",
-              "work_overflow_bwd"):
+    for k in ("bin_overflow", "entry_overflow"):
         assert int(diag[k]) == 0, k
     state = binning.build(cfg, means, cov, s)
     mask = binning.pair_mask_dense(cfg, state, s, P)
@@ -380,124 +297,6 @@ def test_anisotropic_open_box_binned_matches_oracle(rng):
         np.testing.assert_allclose(
             a, b, rtol=2e-3, atol=1e-4 * max(1.0, float(np.abs(b).max()))
         )
-
-
-@pytest.mark.parametrize("D", [1, 2, 3])
-def test_moment_backward_matches_pairwise_backward(rng, D):
-    """The moment-form backward (per-entry gradients as MXU contractions
-    against the sample monomial basis, kernels/tiled._moment_param_rows)
-    must reproduce the per-pair VJP-chain backward exactly - all four
-    orders, all three gradients, wrap-free tile-local coordinates."""
-    cfg = SamplerConfig(max_tiles_per_gaussian=4, tile_size=0.51,
-                        eig_floor=1e-12).with_dims(D)
-    m, v, cov, c, s = _setup(rng, 37, 53, D, sigma_range=(0.02, 0.05))
-    state, fg, bg, fw, bw = _build(cfg, m, cov, s)
-
-    def loss(moments, m_, v_, c_):
-        outs = sampling.sample_tiled_multi(
-            ORDERS, cfg, m_, v_, c_, s, state, fg, bg, fw, bw,
-            block_n=128, block_e=128, bwd_block_n=64, bwd_block_e=128,
-            unwrapped=True, separable=False, moments=moments,
-        )
-        return sum(jnp.sum(o * o) / (1.0 + jnp.sum(o * o)) * 100.0
-                   for o in outs)
-
-    (l_p, g_p) = jax.value_and_grad(
-        lambda *a: loss(False, *a), argnums=(0, 1, 2))(m, v, c)
-    (l_m, g_m) = jax.value_and_grad(
-        lambda *a: loss(True, *a), argnums=(0, 1, 2))(m, v, c)
-    np.testing.assert_allclose(l_m, l_p, rtol=1e-5)
-    for a, b, name in zip(g_m, g_p, ("means", "values", "conics")):
-        np.testing.assert_allclose(
-            a, b, rtol=2e-3, atol=2e-4 * max(1.0, float(np.abs(b).max())),
-            err_msg=name,
-        )
-
-
-@pytest.mark.parametrize("D", [1, 2, 3])
-def test_folded_values_matches_pairwise(rng, D):
-    """The folded-values kernels (ONE G contraction per pair block with
-    per-entry monomial-coefficient rows, kernels/tiled.folded_geom +
-    formulas.component_coeff_polys) must reproduce the classic per-component
-    path - all four orders, values AND all three gradients."""
-    cfg = SamplerConfig(max_tiles_per_gaussian=4, tile_size=0.51,
-                        eig_floor=1e-12).with_dims(D)
-    m, v, cov, c, s = _setup(rng, 37, 53, D, sigma_range=(0.02, 0.05))
-    state, fg, bg, fw, bw = _build(cfg, m, cov, s)
-
-    def loss(folded, m_, v_, c_):
-        outs = sampling.sample_tiled_multi(
-            ORDERS, cfg, m_, v_, c_, s, state, fg, bg, fw, bw,
-            block_n=128, block_e=128, bwd_block_n=64, bwd_block_e=128,
-            unwrapped=True, folded=folded,
-        )
-        return sum(jnp.sum(o * o) / (1.0 + jnp.sum(o * o)) * 100.0
-                   for o in outs)
-
-    (l_c, g_c) = jax.value_and_grad(
-        lambda *a: loss(False, *a), argnums=(0, 1, 2))(m, v, c)
-    (l_f, g_f) = jax.value_and_grad(
-        lambda *a: loss(True, *a), argnums=(0, 1, 2))(m, v, c)
-    np.testing.assert_allclose(l_f, l_c, rtol=1e-5)
-    for a, b, name in zip(g_f, g_c, ("means", "values", "conics")):
-        np.testing.assert_allclose(
-            a, b, rtol=2e-3, atol=2e-4 * max(1.0, float(np.abs(b).max())),
-            err_msg=name,
-        )
-
-
-def test_span_packed_work_items_match_span1(rng):
-    """work_span_fwd/bwd > 1 (multi-block work items) is a pure scheduling
-    change: outputs and gradients must be BIT-identical to span=1 (same
-    blocks, same accumulation order within a row block)."""
-    import dataclasses
-
-    from dgs_tpu.ops import sampling
-
-    P, N, D, C = 120, 384, 2, 2
-    means, values, covs, conics = make_gaussians(
-        rng, P, D, C, sigma_range=(0.03, 0.1))
-    samples = jnp.asarray(rng.uniform(-1, 1, (N, D)).astype(np.float32))
-    m, v, cov, c = map(jnp.asarray, (means, values, covs, conics))
-    base = SamplerConfig(tile_size=0.11, max_tiles_per_gaussian=8,
-                         entry_capacity_factor=120.0, work_blocks_fwd=256,
-                         work_blocks_bwd=256, block_n=128, block_p=128,
-                         block_n_bwd=128, block_p_bwd=128, eig_floor=1e-12)
-
-    def run(cfg):
-        outs, diag = sampling.sample_binned(
-            cfg, m, v, c, cov, samples, ("value", "laplacian"))
-        for k, val in diag.items():
-            if k != "perm":
-                assert int(val) == 0, (k, int(val))
-
-        def loss(mm, vv, cc):
-            o, _ = sampling.sample_binned(
-                cfg, mm, vv, cc, cov, samples, ("value", "laplacian"))
-            return sum(jnp.sum(x * x) / x.size for x in o.values())
-
-        return outs, jax.grad(loss, argnums=(0, 1, 2))(m, v, c)
-
-    o1, g1 = run(base)
-    from dgs_tpu.kernels import tiled as ktiled
-
-    limit = ktiled.COMPRESS_ABOVE
-    try:
-        for compress in (False, True):
-            # Force the compressed (per-row scalars) work-list form too:
-            # at span > 1 it derives the live count from (starts, nblk).
-            ktiled.COMPRESS_ABOVE = 0 if compress else limit
-            for sf, sb in [(2, 2), (4, 3)]:
-                o2, g2 = run(dataclasses.replace(
-                    base, work_span_fwd=sf, work_span_bwd=sb))
-                for k in o1:
-                    np.testing.assert_array_equal(np.asarray(o1[k]),
-                                                  np.asarray(o2[k]))
-                for a, b in zip(g1, g2):
-                    np.testing.assert_array_equal(np.asarray(a),
-                                                  np.asarray(b))
-    finally:
-        ktiled.COMPRESS_ABOVE = limit
 
 
 def test_gaussian_binning_reuse(rng):
@@ -552,7 +351,7 @@ def test_ellip_cull_binning_matches_masked_oracle(rng, D):
         Q = np.zeros((D, D))
         for i in range(D):
             for j in range(D):
-                from dgs_tpu.config import tri_index
+                from dgs.config import tri_index
 
                 Q[i, j] = conics_b[p, tri_index(D, i, j)]
         # Random directions scaled to just inside the 3-sigma surface.
@@ -571,12 +370,10 @@ def test_ellip_cull_binning_matches_masked_oracle(rng, D):
         for t in np.unique(flat):
             assert (p, int(t)) in culled_set, (p, int(t))
 
-    state2, fg, bg, fw, bw = _build(cfg, m, cov, s)
+    state2, fg, bg = _build(cfg, m, cov, s)
     mask = binning.pair_mask_dense(cfg, state2, s, 43)
     outs = sampling.sample_tiled_multi(
-        ("value", "third"), cfg, m, v, c, s, state2, fg, bg, fw, bw,
-        block_n=128, block_e=128, bwd_block_n=64, bwd_block_e=128,
-    )
+        ("value", "third"), cfg, m, v, c, s, state2, fg, bg, **BLOCKS)
     for order, got in zip(("value", "third"), outs):
         ref = oracle.evaluate(order, m, v, c, s, pair_mask=mask)
         np.testing.assert_allclose(
@@ -613,12 +410,10 @@ def test_axis_radii_binning_matches_masked_oracle(rng, D):
             ti = {t % g[d] for t in range(lo_i[p, d], hi_i[p, d])}
             assert ta <= ti, (p, d, ta, ti)
 
-    state2, fg, bg, fw, bw = _build(cfg, m, cov, s)
+    state2, fg, bg = _build(cfg, m, cov, s)
     mask = binning.pair_mask_dense(cfg, state2, s, 43)
     outs = sampling.sample_tiled_multi(
-        ("value", "laplacian"), cfg, m, v, c, s, state2, fg, bg, fw, bw,
-        block_n=128, block_e=128, bwd_block_n=64, bwd_block_e=128,
-    )
+        ("value", "laplacian"), cfg, m, v, c, s, state2, fg, bg, **BLOCKS)
     for order, got in zip(("value", "laplacian"), outs):
         ref = oracle.evaluate(order, m, v, c, s, pair_mask=mask)
         np.testing.assert_allclose(

@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dgs_tpu.config import SamplerConfig
-from dgs_tpu.models import dynamics
+from dgs.config import SamplerConfig
+from dgs.models import dynamics
 
 
 @pytest.mark.slow
@@ -32,9 +32,9 @@ def test_dynamics_training_reduces_loss():
 def test_rollout_step_differentiable_through_scan():
     cfg = SamplerConfig(tile_size=0.51)
     key = jax.random.PRNGKey(0)
-    from dgs_tpu.models.field import init_field
-    from dgs_tpu.oracle.dense import radii as compute_radii
-    from dgs_tpu.ops import aggregation
+    from dgs.models.field import init_field
+    from dgs.oracle.dense import radii as compute_radii
+    from dgs.ops import aggregation
 
     field = init_field(key, 64, 2, 1, sigma=0.15)
     rad = compute_radii(field.covariances(), 2, cfg.radius_sigma,
@@ -63,8 +63,8 @@ def test_dynamics_pallas_aggregation_with_tiled_eval_learns():
     """The large-P production combination: Pallas chunked aggregation
     kernels for the dynamics layer + binned Pallas sampler for the rollout
     evaluation (dense pair arrays are tens of GB at 100k Gaussians)."""
-    from dgs_tpu.config import SamplerConfig
-    from dgs_tpu.models import dynamics
+    from dgs.config import SamplerConfig
+    from dgs.models import dynamics
 
     params, hist = dynamics.train(
         SamplerConfig(eig_floor=1e-12), P=300, D=2, steps=30, rollout=2,

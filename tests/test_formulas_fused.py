@@ -12,8 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dgs_tpu.config import tri_size
-from dgs_tpu.ops import formulas
+from dgs.config import tri_size
+from dgs.ops import formulas
 
 ORDERS = ("value", "derivative", "laplacian", "third")
 

@@ -1,8 +1,10 @@
-"""Pallas dense kernels vs the jnp oracle (config 2 of BASELINE.json).
+"""All-pairs evaluation (sample_dense_multi) vs the jnp oracle (config 2 of
+BASELINE.json).
 
-On CPU the kernels run in Pallas interpret mode; on TPU they compile via
-Mosaic.  Values and all three parameter gradients must match the oracle's
-autodiff to fp32 tolerance.
+The dense path is plain XLA with the hand-derived VJP (formulas.vjp_params);
+values and all three parameter gradients must match the oracle's autodiff to
+fp32 tolerance.  (The test names date from when this path was a Pallas
+kernel; the checks are the same.)
 """
 
 import jax
@@ -10,8 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dgs_tpu.oracle import dense as oracle
-from dgs_tpu.ops import sampling
+from dgs.oracle import dense as oracle
+from dgs.ops import sampling
 
 from conftest import make_gaussians, make_samples
 
@@ -29,7 +31,7 @@ def _setup(rng, P, N, D, C=3):
 @pytest.mark.parametrize("order", ORDERS)
 def test_pallas_forward_matches_oracle(rng, D, order):
     m, v, c, s = _setup(rng, 37, 53, D)
-    got = sampling.sample(order, m, v, c, s, method="pallas")
+    got = sampling.sample(order, m, v, c, s)
     ref = oracle.evaluate(order, m, v, c, s)
     np.testing.assert_allclose(got, ref, rtol=2e-4, atol=1e-5)
 
@@ -37,7 +39,7 @@ def test_pallas_forward_matches_oracle(rng, D, order):
 @pytest.mark.parametrize("D", [1, 2, 3])
 def test_pallas_fused_forward_matches_oracle(rng, D):
     m, v, c, s = _setup(rng, 19, 31, D)
-    outs = sampling.sample_all(m, v, c, s, method="pallas")
+    outs = sampling.sample_all(m, v, c, s)
     for order in ORDERS:
         ref = oracle.evaluate(order, m, v, c, s)
         np.testing.assert_allclose(
@@ -59,7 +61,7 @@ def test_pallas_backward_matches_oracle_autodiff(rng, D, order):
         return jnp.vdot(oracle.evaluate(order, m_, v_, c_, s), g)
 
     def loss_pallas(m_, v_, c_):
-        return jnp.vdot(sampling.sample(order, m_, v_, c_, s, method="pallas"), g)
+        return jnp.vdot(sampling.sample(order, m_, v_, c_, s), g)
 
     ref = jax.grad(loss_oracle, argnums=(0, 1, 2))(m, v, c)
     got = jax.grad(loss_pallas, argnums=(0, 1, 2))(m, v, c)
@@ -80,23 +82,23 @@ def test_pallas_fused_backward_matches_dense(rng):
         return f
 
     ref = jax.grad(
-        loss(lambda *a: sampling.sample_all(*a, method="dense")), argnums=(0, 1, 2)
+        loss(lambda *a: oracle.evaluate_all(*a)), argnums=(0, 1, 2)
     )(m, v, c)
     got = jax.grad(
-        loss(lambda *a: sampling.sample_all(*a, method="pallas")), argnums=(0, 1, 2)
+        loss(lambda *a: sampling.sample_all(*a)), argnums=(0, 1, 2)
     )(m, v, c)
     for r, o in zip(ref, got):
-        # Different (but deterministic) reduction orders: tolerance scales
-        # with gradient magnitude.
+        # Hand-derived VJP vs autodiff: different reduction orders, so the
+        # tolerance scales with gradient magnitude.
         np.testing.assert_allclose(
             o, r, rtol=2e-3, atol=1e-5 * max(1.0, float(np.abs(r).max()))
         )
 
 
 def test_block_boundary_sizes(rng):
-    """Shapes that are not multiples of the block sizes (padding path)."""
+    """Degenerate and odd shapes (single pair, non-power-of-two sizes)."""
     for P, N in [(1, 1), (5, 3), (130, 129), (257, 300)]:
         m, v, c, s = _setup(rng, P, N, 2, C=2)
-        got = sampling.sample("value", m, v, c, s, method="pallas")
+        got = sampling.sample("value", m, v, c, s)
         ref = oracle.evaluate("value", m, v, c, s)
         np.testing.assert_allclose(got, ref, rtol=2e-4, atol=1e-5)

@@ -28,8 +28,8 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from dgs_tpu.config import SamplerConfig
-from dgs_tpu.parallel import mesh as pmesh
+from dgs.config import SamplerConfig
+from dgs.parallel import mesh as pmesh
 
 assert jax.process_count() == 2
 assert len(jax.devices()) == 8, len(jax.devices())
@@ -110,8 +110,8 @@ def test_two_process_mesh_matches_single_process(rng, tmp_path):
     import jax.numpy as jnp
 
     from conftest import make_gaussians
-    from dgs_tpu.config import SamplerConfig
-    from dgs_tpu.ops import sampling
+    from dgs.config import SamplerConfig
+    from dgs.ops import sampling
 
     P_G, N, D, C = 64, 256, 2, 3
     means, values, covs, conics = make_gaussians(rng, P_G, D, C)

@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dgs_tpu.config import SamplerConfig
-from dgs_tpu.binning import grid as binning
-from dgs_tpu.oracle import dense as oracle
-from dgs_tpu.ops import aggregation
-from dgs_tpu.utils import native
+from dgs.config import SamplerConfig
+from dgs.binning import grid as binning
+from dgs.oracle import dense as oracle
+from dgs.ops import aggregation
+from dgs.utils import native
 
 from conftest import make_gaussians, make_samples
 
@@ -35,7 +35,7 @@ def test_planner_matches_jnp_binning(rng):
     assert plan["max_extent"] == int(np.asarray(hi - lo).max())
 
     bn, be = cfg.block_n, cfg.block_p
-    bbn, bbe = max(bn // 2, 8), max(be // 2, 128)
+    bbn, bbe = cfg.bwd_blocks
     _, fn = binning.forward_geometry(state, bn, be)
     _, bnn = binning.backward_geometry(state, bbe, bbn)
     assert plan["work_blocks_fwd"] >= int(jnp.max(fn))
@@ -55,8 +55,6 @@ def test_planner_capacities_make_binning_exact(rng):
     cfg = SamplerConfig(
         max_tiles_per_gaussian=max(int(plan["max_extent"]), 1),
         entry_capacity_factor=max(plan["entries"] / 300 + 1, 1.0),
-        work_blocks_fwd=max(int(plan["work_blocks_fwd"]), 1),
-        work_blocks_bwd=max(int(plan["work_blocks_bwd"]), 1),
     )
     state = binning.build(
         cfg, jnp.asarray(means), jnp.asarray(covs), jnp.asarray(samples)
@@ -84,8 +82,8 @@ def test_planner_cpp_matches_numpy_both_domains(rng):
     truncated to the unplanned capacity)."""
     import jax
 
-    from dgs_tpu.models.field import init_field
-    from dgs_tpu.utils import native
+    from dgs.models.field import init_field
+    from dgs.utils import native
 
     f = init_field(jax.random.PRNGKey(0), 500, 2, 2, sigma=0.05)
     x = jnp.asarray(make_samples(rng, 2000, 2))
@@ -113,8 +111,8 @@ def test_planner_ellip_cull_matches_numpy(rng, D):
     footprint's entries."""
     import jax
 
-    from dgs_tpu.models.field import init_field
-    from dgs_tpu.utils import native
+    from dgs.models.field import init_field
+    from dgs.utils import native
 
     f = init_field(jax.random.PRNGKey(0), 300, D, 2, sigma=0.08)
     x = jnp.asarray(make_samples(rng, 1000, D))

@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dgs_tpu.config import n_components, tri_size
-from dgs_tpu.oracle import dense as oracle
-from dgs_tpu.ops import sampling
+from dgs.config import n_components, tri_size
+from dgs.oracle import dense as oracle
+from dgs.ops import sampling
 
 from conftest import make_gaussians, make_samples
 

@@ -4,10 +4,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dgs_tpu.config import SamplerConfig
-from dgs_tpu.sampler import GaussianSampler
-from dgs_tpu.oracle import dense as oracle
-from dgs_tpu.binning import grid as binning
+from dgs.config import SamplerConfig
+from dgs.sampler import GaussianSampler
+from dgs.oracle import dense as oracle
+from dgs.binning import grid as binning
 
 from conftest import make_gaussians, make_samples
 
@@ -117,7 +117,7 @@ def test_facade_pallas_aggregation_matches_grid(rng):
     pal = GaussianSampler(debug=True)
     pal.preprocess(m, v, cov, c, s)
     pal.preprocess_aggregate(method="pallas")
-    from dgs_tpu.ops.aggregation import AggBinning
+    from dgs.ops.aggregation import AggBinning
     assert isinstance(pal.neighbors, AggBinning)
 
     ref = grid.aggregate_neighbors(*args)
@@ -138,14 +138,14 @@ def test_facade_pallas_aggregation_matches_grid(rng):
 
 def test_module_level_pallas_aggregate_dispatch(rng):
     """The module-level aggregate_neighbors dispatches on the structure."""
-    import dgs_tpu
-    from dgs_tpu.ops import aggregation
+    import dgs
+    from dgs.ops import aggregation
 
     means, values, covs, conics = make_gaussians(
         rng, 24, 2, 3, sigma_range=(0.05, 0.2)
     )
     m, cov, c = map(jnp.asarray, (means, covs, conics))
-    from dgs_tpu.oracle.dense import radii as compute_radii
+    from dgs.oracle.dense import radii as compute_radii
 
     cfg = SamplerConfig()
     rad = compute_radii(cov, 2, cfg.radius_sigma, cfg.eig_floor)
@@ -154,7 +154,7 @@ def test_module_level_pallas_aggregate_dispatch(rng):
 
     P, L, K, E = 24, 3, 3, 5
     r = np.random.default_rng(5)
-    out = dgs_tpu.aggregate_neighbors(
+    out = dgs.aggregate_neighbors(
         jnp.asarray(r.normal(size=(P, L)).astype(np.float32)),
         jnp.asarray(r.normal(size=(L, L)).astype(np.float32)),
         jnp.asarray(r.normal(size=(P, K)).astype(np.float32)),
@@ -187,24 +187,24 @@ def test_facade_dense_method_matches_tiled_masked(rng):
 def test_module_level_functional_api():
     """The reference's module-level functional forms (__init__.py:21-36)
     exist in JAX idiom and are differentiable."""
-    import dgs_tpu
+    import dgs
     import jax
     import jax.numpy as jnp
-    from dgs_tpu.models.field import init_field
+    from dgs.models.field import init_field
 
     f = init_field(jax.random.PRNGKey(0), 40, 2, 3, sigma=0.1)
     x = jax.random.uniform(jax.random.PRNGKey(1), (100, 2),
                            minval=-1, maxval=1)
     con = f.conics()
-    assert dgs_tpu.sample_gaussians(f.means, f.values, con, x).shape == (100, 3)
-    assert dgs_tpu.sample_gaussians_derivative(
+    assert dgs.sample_gaussians(f.means, f.values, con, x).shape == (100, 3)
+    assert dgs.sample_gaussians_derivative(
         f.means, f.values, con, x).shape == (100, 2, 3)
-    assert dgs_tpu.sample_gaussians_laplacian(
+    assert dgs.sample_gaussians_laplacian(
         f.means, f.values, con, x).shape == (100, 2, 2, 3)
-    assert dgs_tpu.sample_gaussians_third_derivative(
+    assert dgs.sample_gaussians_third_derivative(
         f.means, f.values, con, x).shape == (100, 2, 2, 2, 3)
     g = jax.grad(lambda m: jnp.sum(
-        dgs_tpu.sample_gaussians(m, f.values, con, x) ** 2))(f.means)
+        dgs.sample_gaussians(m, f.values, con, x) ** 2))(f.means)
     assert g.shape == f.means.shape and bool(jnp.isfinite(g).all())
 
 
@@ -214,7 +214,7 @@ def test_profiling_trace_and_aggregation(tmp_path):
     path is what's under test)."""
     import jax
     import jax.numpy as jnp
-    from dgs_tpu.utils import profiling
+    from dgs.utils import profiling
 
     @jax.jit
     def f(x):
@@ -235,9 +235,9 @@ def test_debug_named_errors():
     import jax
     import jax.numpy as jnp
     import pytest
-    from dgs_tpu.config import SamplerConfig
-    from dgs_tpu.sampler import GaussianSampler
-    from dgs_tpu.models.field import init_field
+    from dgs.config import SamplerConfig
+    from dgs.sampler import GaussianSampler
+    from dgs.models.field import init_field
 
     f = init_field(jax.random.PRNGKey(0), 64, 2, 2, sigma=0.2)
     cov, con = f.covariances(), f.conics()
@@ -267,9 +267,9 @@ def test_module_level_preprocess_aggregate_methods(rng):
     dispatch (ext.cpp:29 parity at the module surface): method="pallas"
     builds the production AggBinning structure and its aggregation matches
     the grid-table path."""
-    import dgs_tpu
-    from dgs_tpu.ops import aggregation
-    from dgs_tpu.oracle.dense import radii as compute_radii
+    import dgs
+    from dgs.ops import aggregation
+    from dgs.oracle.dense import radii as compute_radii
 
     means, values, covs, conics = make_gaussians(
         rng, 30, 2, 3, sigma_range=(0.05, 0.2)
@@ -278,9 +278,9 @@ def test_module_level_preprocess_aggregate_methods(rng):
     cfg = SamplerConfig()
     rad = compute_radii(cov, 2, cfg.radius_sigma, cfg.eig_floor)
 
-    agg_p = dgs_tpu.preprocess_aggregate(cfg, m, c, rad, method="pallas")
+    agg_p = dgs.preprocess_aggregate(cfg, m, c, rad, method="pallas")
     assert isinstance(agg_p, aggregation.AggBinning)
-    agg_g = dgs_tpu.preprocess_aggregate(cfg, m, c, rad, method="grid",
+    agg_g = dgs.preprocess_aggregate(cfg, m, c, rad, method="grid",
                                          neighbor_capacity=64)
     assert isinstance(agg_g, aggregation.Neighbors)
 
@@ -294,9 +294,9 @@ def test_module_level_preprocess_aggregate_methods(rng):
         jnp.asarray(np.arange(1.0, 2.0).astype(np.float32)),
         jnp.asarray(r.normal(size=(2 * E,)).astype(np.float32)),
     )
-    out_p = dgs_tpu.aggregate_neighbors(*args, agg_p)
-    out_g = dgs_tpu.aggregate_neighbors(*args, agg_g)
+    out_p = dgs.aggregate_neighbors(*args, agg_p)
+    out_g = dgs.aggregate_neighbors(*args, agg_g)
     np.testing.assert_allclose(out_p, out_g, rtol=2e-4, atol=2e-5)
 
     with pytest.raises(ValueError, match="method"):
-        dgs_tpu.preprocess_aggregate(cfg, m, c, rad, method="nope")
+        dgs.preprocess_aggregate(cfg, m, c, rad, method="nope")

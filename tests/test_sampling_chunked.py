@@ -9,10 +9,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dgs_tpu.config import SamplerConfig
-from dgs_tpu.ops import sampling, sampling_chunked
-from dgs_tpu.binning import grid as binning
-from dgs_tpu.oracle.dense import radii as compute_radii
+from dgs.config import SamplerConfig
+from dgs.ops import sampling, sampling_chunked
+from dgs.binning import grid as binning
+from dgs.oracle.dense import radii as compute_radii
 
 from conftest import make_gaussians
 
@@ -45,8 +45,7 @@ def test_chunked_matches_tiled(rng, D, orders):
     P, N, C = 200, 500, 3
     means, values, covs, conics, samples = _setup(rng, P, N, D, C)
     cfg = SamplerConfig(tile_size=0.11, max_tiles_per_gaussian=8,
-                        entry_capacity_factor=120.0, work_blocks_fwd=256,
-                        work_blocks_bwd=256, block_n=128, block_p=128,
+                        entry_capacity_factor=120.0, block_n=128, block_p=128,
                         block_n_bwd=128, block_p_bwd=128,
                         eig_floor=1e-12).with_dims(D)
 
@@ -75,8 +74,7 @@ def test_chunked_matches_tiled(rng, D, orders):
     outs_c, diag = sampling_chunked.sample_chunked_multi(
         tuple(orders), cfg2, means, values, conics, rad, cs, plan,
         block_n=cfg2.block_n, block_e=cfg2.block_p)
-    for k in ("bin_overflow", "entry_overflow", "work_overflow_fwd",
-              "work_overflow_bwd"):
+    for k in ("bin_overflow", "entry_overflow", "sample_overflow"):
         assert int(diag[k]) == 0, (k, int(diag[k]))
 
     for o, (a, b) in zip(orders, zip(outs_c, outs_t)):
@@ -97,7 +95,7 @@ def test_chunked_matches_tiled(rng, D, orders):
 def test_chunked_padded_outputs_sum_matches(rng):
     """padded_outputs raw layout: multiplicity-weighted sum-of-squares
     equals the full-tensor loss computed from unsorted outputs."""
-    from dgs_tpu.ops import formulas
+    from dgs.ops import formulas
 
     D, P, N, C = 2, 150, 400, 2
     orders = ("value", "derivative", "laplacian")
@@ -123,47 +121,3 @@ def test_chunked_padded_outputs_sum_matches(rng):
         for order, o in zip(orders, padded)
     )
     assert got == pytest.approx(want, rel=1e-4)
-
-
-@pytest.mark.parametrize("spans", [(1, 1), (2, 3)])
-def test_chunked_compressed_work_list_matches(rng, monkeypatch, spans):
-    """Above COMPRESS_ABOVE the kernels read the compressed per-row
-    (base, start) work-list form (binning/chunked.row_sweeps); forcing the
-    threshold to 0 must leave outputs and gradients bit-identical to the
-    uncompressed encoding (same items, same order, same blocks) - at
-    span=1 and with span-packed multi-block items."""
-    import dataclasses
-
-    from dgs_tpu.kernels import tiled as ktiled
-
-    D, orders = 2, ("value", "derivative")
-    P, N, C = 150, 400, 2
-    means, values, covs, conics, samples = _setup(rng, P, N, D, C)
-    cfg = SamplerConfig(tile_size=0.2, block_n=128, block_p=128,
-                        eig_floor=1e-12).with_dims(D)
-    cfg2, plan = sampling_chunked.plan_chunked(cfg, means, covs, samples)
-    cfg2 = dataclasses.replace(cfg2, work_span_fwd=spans[0],
-                               work_span_bwd=spans[1])
-    cs = sampling_chunked.chunk_samples(cfg2, samples, plan, cfg2.block_n)
-    rad = compute_radii(covs, D, cfg2.radius_sigma, cfg2.eig_floor)
-
-    def chunked(m, v, c):
-        outs, diag = sampling_chunked.sample_chunked_multi(
-            orders, cfg2, m, v, c, rad, cs, plan,
-            block_n=cfg2.block_n, block_e=cfg2.block_p)
-        for k, val in diag.items():
-            if k != "perm":
-                assert int(val) == 0, (k, int(val))
-        return outs
-
-    ref = chunked(means, values, conics)
-    g_ref = _grads(lambda m, v, c: chunked(m, v, c), means, values, conics)
-
-    monkeypatch.setattr(ktiled, "COMPRESS_ABOVE", 0)
-    got = chunked(means, values, conics)
-    g_got = _grads(lambda m, v, c: chunked(m, v, c), means, values, conics)
-
-    for a, b in zip(got, ref):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    for a, b in zip(g_got, g_ref):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
